@@ -4,8 +4,7 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` into its own shared
 library with a plain C interface, for ``sm_90a``, and loaded with
 ``ctypes``. Builds happen at first use, from the sources in the checkout,
 into ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed
-by a hash of the source and the flags; all sources compile in parallel.
-Nothing here runs at import time, so the CPU tests never need ``nvcc``.
+by a hash of the source and the flags. Nothing here runs at import time, so the CPU tests never need ``nvcc``.
 """
 from __future__ import annotations
 
@@ -15,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -46,31 +45,22 @@ def _target(name: str) -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every named source that is not built yet, all at once."""
-    names = list(names)
-    procs = {}
-    for name in names:
-        out = _target(name)
-        if out.is_file():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failures = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return {name: _target(name) for name in names}
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless it is built already; its library."""
+    out = _target(name)
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 def build_log(name: str) -> str:
@@ -82,5 +72,5 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+        _LIBS[name] = ctypes.CDLL(str(build(name)))
     return _LIBS[name]

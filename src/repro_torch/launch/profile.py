@@ -26,7 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import get_arch
-from repro_torch.core.hetero_dp import make_prefill_step
+from repro_torch.core.hetero_dp import make_prefill_step, make_serve_step
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import Server
 from repro_torch.models.model_factory import build_model
@@ -91,6 +91,7 @@ def main() -> None:
     model = build_model(cfg)
     params = model.init(SEED, dev)
     prefill = make_prefill_step(model)
+    serve = make_serve_step(model)
     rng = np.random.default_rng(SEED)
     batch = {"tokens": torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ)), device=dev)}
@@ -107,7 +108,7 @@ def main() -> None:
     def run_decode():
         nonlocal cache, tok
         for _ in range(DECODE_STEPS):
-            logits_, cache = srv._decode(params, cache, tok)
+            logits_, cache = serve(params, cache, tok)
             tok = logits_.argmax(-1)
 
     run_prefill()                       # warm-up: cuBLAS and the kernel build

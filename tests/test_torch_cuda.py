@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_arch, reduced_config
+from repro_torch.core.hetero_dp import make_prefill_step
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import Server
@@ -72,3 +73,18 @@ def test_reduced_model_on_card_matches_cpu(cuda):
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(gpu.generate(prompts, 8)["tokens"],
                                   cpu.generate(prompts, 8)["tokens"])
+
+
+def test_reduced_prefill_through_kernel_matches_cpu(cuda):
+    cfg = reduced_config(get_arch("deepseek-7b"))
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    tokens = torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40)))
+    want = make_prefill_step(model)(params, {"tokens": tokens})
+    prefill = make_prefill_step(model)
+    before = fa.LAUNCHES
+    got = prefill(copy.deepcopy(params).to(cuda), {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
